@@ -1,7 +1,7 @@
-"""Canvas-TPU: a TPU-native media processing framework.
+"""Canvas: a JAX media processing framework.
 
 A ground-up rebuild of the capabilities of fluggo/Canvas (a pull-based
-video/audio engine + editor) with all pixel kernels on JAX/XLA/Pallas.
+video/audio engine + editor) with all pixel kernels on JAX/XLA.
 See ARCHITECTURE.md and SURVEY.md at the repo root.
 """
 

@@ -1,6 +1,6 @@
 """Audio engine: sample-range frame algebra, sources, sequence, workspace.
 
-TPU-native port of the reference's audio stack:
+JAX port of the reference's audio stack:
   * kernels  — /root/reference/src/cprocess/audio_mix.c (copy/attenuate/
     overwrite/mix_add and the pull variant) with identical window-result
     semantics, validated against the C test suite's cases

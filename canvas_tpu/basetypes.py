@@ -1,16 +1,14 @@
 """Geometry and color base types.
 
-TPU-native port of the reference's base types: the C structs in
-/root/reference/include/framework.h:46-149 and the Python namedtuples + YAML
-tags in /root/reference/fluggo/media/basetypes.py:24-201. Semantics match the
+Port of the reference's base types: the C structs in
+include/framework.h:46-149 and the Python namedtuples + YAML tags in
+fluggo/media/basetypes.py:24-201. Semantics match the
 reference exactly (empty-box convention ``max < min``, inclusive box bounds),
 but the implementation is original.
 """
 
 import collections
 import fractions
-
-import yaml
 
 # 'fractions' is deliberately exported: the reference's basetypes module
 # has no __all__, so its `import fractions` leaks into star-imports, and
@@ -277,8 +275,22 @@ def _rgba_construct(loader, node):
     return rgba(*loader.construct_sequence(node))
 
 
+_yaml_registered = False
+
+
 def register_yaml(loader_cls=None, dumper_cls=None):
-    """Register all tags on the given classes (defaults: global pyyaml)."""
+    """Register all tags on the given classes (defaults: global pyyaml).
+
+    Called by the modules that read or write YAML (the editor's model,
+    plugins and app), so that the render path never imports yaml. The
+    default global registration runs once."""
+    global _yaml_registered
+    import yaml
+
+    if loader_cls is None and dumper_cls is None:
+        if _yaml_registered:
+            return
+        _yaml_registered = True
     pairs = [
         (fractions.Fraction, '!rational', _rational_represent, _rational_construct),
         (v2i, '!v2i', _v2i_represent, _v2i_construct),
@@ -299,6 +311,3 @@ def register_yaml(loader_cls=None, dumper_cls=None):
             # pyyaml's add_constructor default only covers Loader/FullLoader
             # in some versions; make SafeLoader work too.
             yaml.add_constructor(tag, con, Loader=yaml.SafeLoader)
-
-
-register_yaml()

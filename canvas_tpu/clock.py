@@ -1,6 +1,6 @@
 """Presentation clocks.
 
-TPU-native equivalent of /root/reference/src/process/clock.c: a
+JAX equivalent of the reference's src/process/clock.c: a
 presentation clock maps wall time to stream time (nanoseconds) at a
 rational speed, and notifies registered callbacks on speed/seek changes.
 The engine is host-side Python (clock math never touches the device).

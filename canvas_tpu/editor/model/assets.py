@@ -15,9 +15,12 @@ from collections.abc import MutableMapping
 
 import yaml
 
+from canvas_tpu.basetypes import register_yaml
 from canvas_tpu import logging as _logging
 from canvas_tpu.editor import plugins
 from canvas_tpu.signal import Signal
+
+register_yaml()
 
 _log = _logging.getLogger(__name__)
 

@@ -9,9 +9,12 @@ model, and the YAML tags (!CanvasItem, !CanvasClip, !CanvasSequence,
 
 import yaml
 
+from canvas_tpu.basetypes import register_yaml
 from canvas_tpu import ezlist, sortlist
 from canvas_tpu import process
 from canvas_tpu.signal import Signal
+
+register_yaml()
 
 __all__ = ['Anchor', 'Item', 'Clip', 'PlaceholderItem', 'Sequence',
            'SequenceItem']

@@ -7,9 +7,12 @@ overlap queries, and the !CanvasSpace YAML tag.
 
 import yaml
 
+from canvas_tpu.basetypes import register_yaml
 from canvas_tpu import ezlist
 from canvas_tpu.signal import Signal
 from canvas_tpu import logging as _logging
+
+register_yaml()
 
 _log = _logging.getLogger(__name__)
 

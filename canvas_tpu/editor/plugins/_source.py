@@ -13,9 +13,11 @@ import yaml
 
 from canvas_tpu import audio as audio_mod
 from canvas_tpu import sources as sources_mod
-from canvas_tpu.basetypes import box2i, v2f
+from canvas_tpu.basetypes import box2i, register_yaml, v2f
 from canvas_tpu.signal import Signal
 from canvas_tpu.editor.plugins._base import AlertPublisher, Plugin
+
+register_yaml()
 
 __all__ = ['SourceOfflineError', 'KnownIlluminants', 'SourcePlugin',
            'Source', 'VideoFormat', 'AudioFormat', 'VideoStream',

@@ -3,7 +3,7 @@
 Rebuild of /root/reference/fluggo/editor/plugins/libav/dv.py on top of
 the native canvas_av layer (canvas_tpu.libav): a file source plugin that
 probes containers and wires decoder connectors, a DV video codec that
-runs the TPU reconstruction path, a generic video codec (swscale->RGBA,
+runs the device reconstruction path, a generic video codec (swscale->RGBA,
 linearized), and a PCM/generic audio codec.
 """
 
@@ -136,7 +136,7 @@ class _RgbaDecoderSource(VideoSource):
 
 
 class DVVideoCodec(plugins.Codec):
-    """DV video: native decode + TPU 4:1:1 reconstruction
+    """DV video: native decode + device 4:1:1 reconstruction
     (dv.py:71-113)."""
 
     urn = 'urn:canvas-tpu/codecs:libav-dv'

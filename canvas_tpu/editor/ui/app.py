@@ -11,6 +11,7 @@ import fractions
 
 import yaml
 
+from canvas_tpu.basetypes import register_yaml
 from canvas_tpu.clock import SystemPresentationClock
 from canvas_tpu.editor import model, plugins
 from canvas_tpu.editor.model.undo import UndoStack
@@ -20,6 +21,8 @@ from canvas_tpu.editor.ui.canvas_models import (AssetDragController,
                                                 HandleDragController)
 from canvas_tpu.editor.ui.notification import AlertListModel
 from canvas_tpu.signal import Signal
+
+register_yaml()
 
 __all__ = ['EditorApp', 'SpaceEditor']
 

@@ -36,7 +36,7 @@ class RenderJob:
 
     def start(self):
         from canvas_tpu import backend
-        backend.ensure_initialized(probe=True)
+        backend.ensure_initialized()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name='canvas-render')
         self._thread.start()

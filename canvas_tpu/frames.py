@@ -1,6 +1,6 @@
 """Video frame containers and the pull-protocol source base class.
 
-TPU-native equivalents of the reference's frame types and dispatch:
+JAX equivalents of the reference's frame types and dispatch:
 
 * ``rgba_frame_f16`` / ``rgba_frame_f32`` (framework.h:155-213) become
   :class:`RgbaFrameF16` / :class:`RgbaFrameF32` — channel-planar
@@ -73,8 +73,8 @@ class VideoSource:
     @staticmethod
     def _forced_backend(kwargs):
         # The reference's tests pass force_gl= to exercise the device path;
-        # we map it to the JAX backend. force_tpu= is the native spelling.
-        force = kwargs.pop('force_tpu', None)
+        # we map it to the JAX backend. force_device= is the native spelling.
+        force = kwargs.pop('force_device', None)
         if force is None:
             force = kwargs.pop('force_gl', None)
         else:

@@ -893,8 +893,8 @@ def write_video(filename, video_source, audio_source, start_frame, end_frame,
         mux.start()
 
         # *batch* frames render per compiled-program dispatch; bigger
-        # batches amortize per-dispatch transport on remote-attached
-        # devices (the render thread stays one batch ahead either way).
+        # batches amortize per-dispatch host cost (the render thread
+        # stays one batch ahead either way).
         batch = max(1, int(batch))
 
         def to_u8(data):

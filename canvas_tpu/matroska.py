@@ -434,7 +434,7 @@ class SegmentInfo(ebml):
     MuxingApp = 0x4D80
     WritingApp = 0x5741
 
-    def __init__(self, writing_app, muxing_app='Canvas-TPU MatroskaWriter',
+    def __init__(self, writing_app, muxing_app='Canvas MatroskaWriter',
                  duration=None, date_utc=None, title=None,
                  timecode_scale=1000000):
         ebml.__init__(self, self.Element, [])
@@ -716,7 +716,7 @@ class MatroskaWriter:
 
 def write_audio_pcm_float(filename, source, min_sample, max_sample,
                           sample_rate, channels,
-                          writing_app='Canvas-TPU audio writer'):
+                          writing_app='Canvas audio writer'):
     """Raw float PCM audio Matroska from an audio source
     (matroska.py:873-932)."""
     import numpy as np

@@ -1,14 +1,14 @@
 """Chroma reconstruction and subsampling kernels.
 
-TPU-native equivalents of /root/reference/src/cprocess/video_reconstruct.c
+JAX equivalents of the reference's src/cprocess/video_reconstruct.c
 and video_subsample.c. The reference runs per-row scalar FIR loops (CPU)
 or GLSL shaders (GPU); here each step is expressed as dense linear algebra
-so XLA maps it onto the MXU/VPU:
+so XLA compiles it to fused elementwise passes and matmuls:
 
-* studio-range expansion/compression: elementwise (VPU)
+* studio-range expansion/compression: elementwise
 * chroma up/down-sampling: a fixed resample matrix contracted with the
-  chroma planes (MXU) — built once per geometry and cached
-* YCbCr<->RGB: a 3x3 matrix einsum (MXU)
+  chroma planes (a matmul) — built once per geometry and cached
+* YCbCr<->RGB: a 3x3 matrix einsum
 * transfer curves: the shared f16-LUT gather from canvas_tpu.ops.color
 
 DV geometry (video_reconstruct.c:50-137, video_subsample.c:95-187):
@@ -390,8 +390,8 @@ def _jax_subsample_dv():
     YCbCr, triangle 4:1 chroma decimation, C-cast truncation — with
     the window realized as traced masks (one compiled program for any
     current_window) and the three planes PACKED into one u8 buffer so
-    a remote-attached export pays a single fetch (518 KB) instead of
-    shipping the whole f16 frame (2.8 MB) to subsample on the host."""
+    an export pays a single fetch (518 KB) instead of shipping the
+    whole f16 frame (2.8 MB) to subsample on the host."""
     global _jax_dv_sub
     if _jax_dv_sub is None:
         jax = backend.jax

@@ -1,10 +1,10 @@
 """Compositing kernels: crossfade and over.
 
-TPU-native equivalents of /root/reference/src/cprocess/video_mix.c. The
+JAX equivalents of the reference's src/cprocess/video_mix.c. The
 reference splits each blend into outer/inner window-region loops; because
 our frames guarantee zero outside ``current_window``, both blends reduce to
-a single branch-free pointwise formula over the whole tile (ideal for the
-VPU). Window metadata algebra lives in the callers (host side).
+a single branch-free pointwise formula over the whole tile, which XLA
+fuses. Window metadata algebra lives in the callers (host side).
 
 Colors are stored with *unassociated* alpha; both kernels weight by alpha
 and divide back out, exactly like the reference:

@@ -1,15 +1,15 @@
-"""Separable FIR image scaling as MXU matrix multiplies.
+"""Separable FIR image scaling as matrix multiplies.
 
-TPU-native equivalent of /root/reference/src/cprocess/video_scale.c and
+JAX equivalent of the reference's src/cprocess/video_scale.c and
 filter.c. The reference builds a triangle FIR per output row (fractional
-phase changes every row) and runs scalar accumulation loops. On TPU the
+phase changes every row) and runs scalar accumulation loops. On device the
 same math is a pair of matrix multiplies: a resample along an axis is
 
     out[t] = sum_s W[t, s] * src[s]
 
 where ``W`` encodes every per-row triangle filter at once. We build W
 host-side with NumPy (cheap: O(rows x taps)) and contract on device with
-``einsum`` — the MXU does the heavy lifting, and XLA fuses the vertical
+``einsum`` — the matmul does the heavy lifting, and XLA fuses the vertical
 and horizontal passes.
 
 Filter math (filter_createTriangle, filter.c:24-77), simplified from the
@@ -250,8 +250,9 @@ def _apply_jax():
 
         @jax.jit
         def apply(src, Wy, Wx):
-            # precision='highest': keep full f32 MXU passes so results
-            # track the C/NumPy reference within f32 rounding.
+            # precision='highest': full f32 (the GPU would otherwise run
+            # TF32) so results track the C/NumPy reference within f32
+            # rounding.
             src = src.astype(jnp.float32)
             tmp = jnp.einsum('yh,chw->cyw', Wy, src, precision='highest',
                              preferred_element_type=jnp.float32)

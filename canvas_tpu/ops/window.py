@@ -1,6 +1,6 @@
 """Window placement ops: fill, shift/re-window, and dtype conversion.
 
-TPU-native replacement for the reference's per-source scanline loops
+JAX replacement for the reference's per-source scanline loops
 (e.g. /root/reference/src/process/SolidColorVideoSource.c:52-101) and the
 implicit re-windowing that happens when a frame is pulled into a different
 full_window. Frames are channel-planar ``(4, H, W)`` arrays; coordinate

@@ -1,13 +1,13 @@
 """Toolkit-independent playback engine.
 
-TPU-native equivalent of /root/reference/src/cprocess/widget_gl.c: a
+JAX equivalent of the reference's src/cprocess/widget_gl.c: a
 render thread follows a presentation clock, renders frames ahead of the
 presentation time into a small ring, and hands display-ready frames to a
-host callback. Differences from the reference are deliberate TPU design:
+host callback. Differences from the reference are deliberate device design:
 
 * The reference pulls one frame at a time into a 4-slot ring
   (widget_gl.c:25,65). Here the render thread renders *batches* ahead
-  through the compiled device program (canvas_tpu.render), so the TPU
+  through the compiled device program (canvas_tpu.render), so the device
   stays busy and per-frame dispatch overhead amortizes; the ring holds
   display-converted host frames.
 * Display conversion (f16 -> u8 BGRA via the gamma45 ramp,
@@ -82,6 +82,8 @@ def _viewport_resample(dy, dx, data):
     jnp = backend.jnp
 
     def make(_key):
+        # default precision: TF32 on the GPU (a display preview, not
+        # the bit-exact path)
         def resample(data, dy, dx):
             out = jnp.einsum('yh,bchw->bcyw', dy,
                              data.astype(jnp.float32))
@@ -117,7 +119,7 @@ class VideoPlaybackEngine:
         self._viewport = None
         self._planner = None
         self._quality = 10
-        #: Stall watchdog: a dead remote transport blocks the render
+        #: Stall watchdog: a hung device call blocks the render
         #: thread inside a native fetch where nothing can interrupt it;
         #: the app must LEARN about it (alert, don't freeze silently).
         #: on_stall(True) fires once when a batch exceeds
@@ -132,10 +134,9 @@ class VideoPlaybackEngine:
         self._watch_stop = threading.Event()
 
         from canvas_tpu import backend
-        # JAX must first init on this thread; probe=True bounds a down
-        # remote transport with a CPU fallback instead of hanging the
-        # app on its first device op.
-        backend.ensure_initialized(probe=True)
+        # JAX initializes on this (the constructing) thread, before the
+        # render thread starts.
+        backend.ensure_initialized()
 
         self._lock = threading.Lock()
         #: Serializes planner use: the long-lived RenderPlanner has
@@ -425,8 +426,8 @@ class VideoPlaybackEngine:
                 data = _viewport_resample(dy, dx, data)
             if quality <= 5:
                 # Degraded scrub preview: lossy 4:2:0 packed transport
-                # (1.5 bytes/px vs BGRA's 4 — the fetch dominates a
-                # remote-attached scrub); bit-exact BGRA returns with
+                # (1.5 bytes/px vs BGRA's 4 — fewer bytes to fetch per
+                # scrub); bit-exact BGRA returns with
                 # quality >= 10.
                 packed = np.asarray(
                     color_ops.yuv420_pack_device(data, intent))

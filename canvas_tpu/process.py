@@ -40,7 +40,7 @@ AudioWorkspaceItem = WorkspaceItem
 
 
 class Offscreen:
-    """GL-era offscreen rendering context (main.c:193-250). The TPU
+    """GL-era offscreen rendering context (main.c:193-250). The JAX
     build has no GL path — compiled device programs render offscreen
     by construction — so this name exists only so reference scripts
     import; constructing one is an error."""

@@ -49,8 +49,8 @@ timed = Timer
 
 
 @contextlib.contextmanager
-def trace(log_dir='/tmp/canvas_tpu_trace'):
-    """Capture a JAX profiler trace around a block."""
+def trace(log_dir):
+    """Capture a JAX profiler trace around a block into *log_dir*."""
     import jax
 
     jax.profiler.start_trace(log_dir)

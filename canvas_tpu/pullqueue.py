@@ -1,6 +1,6 @@
 """Background frame prefetcher.
 
-TPU-native equivalent of /root/reference/src/process/VideoPullQueue.c: a
+JAX equivalent of the reference's src/process/VideoPullQueue.c: a
 small thread pool pulls frames (host decode + device render) off the UI
 thread and marshals results back through a dispatch callable. The
 reference marshals onto the GLib main loop (g_timeout_add_full,
@@ -49,7 +49,7 @@ class VideoPullQueue:
 
     def __init__(self, workers=2, dispatch=None, planner_cache=32):
         from canvas_tpu import backend
-        backend.ensure_initialized(probe=True)  # main-thread init, bounded
+        backend.ensure_initialized()  # init on the constructing thread
         self._workers = workers
         self._planner_cache = max(1, int(planner_cache))
         self._pool = ThreadPoolExecutor(max_workers=workers,
@@ -123,7 +123,7 @@ class VideoPullQueue:
         """One frame via the batched planner when the source supports
         planning (a B=1 program reuses the compiled-program cache across
         pulls — one device dispatch instead of the eager per-op pull
-        path, which pays a host round trip per op on remote devices);
+        path, which dispatches once per op);
         eager fallback otherwise."""
         from canvas_tpu import backend
         source, window = item.source, item.window

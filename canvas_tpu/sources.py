@@ -1,6 +1,6 @@
 """Video sources, filters, and containers.
 
-TPU-native equivalents of the reference's `fluggo.media.process` video types
+JAX equivalents of the reference's `fluggo.media.process` video types
 (/root/reference/src/process/): EmptyVideoSource, SolidColorVideoSource,
 VideoPassThroughFilter, VideoMixFilter, VideoGainOffsetFilter,
 VideoSequence, VideoWorkspace. Pixel work happens in canvas_tpu.ops
@@ -17,6 +17,7 @@ from canvas_tpu.basetypes import (EMPTY_BOX2I, INFINITE_BOX2I, box2i,
                                   box2i_intersect, box2i_union, v2f)
 from canvas_tpu.frames import RgbaFrameF32, VideoSource
 from canvas_tpu.ops import mix as mix_ops
+from canvas_tpu.ops.composite import REGION_BLOCK
 from canvas_tpu.ops import scale as scale_ops
 from canvas_tpu.ops import window as window_ops
 
@@ -904,9 +905,9 @@ def _solid_cell_tables(colors, boxes, gains, offsets, H, W):
     (2L+1) x (2L+1) cells. The premultiplied fold therefore runs ON
     HOST over cells (O(B * L * cells) scalar numpy f32 ops, same op
     order as the per-pixel math, so bit-identical values), and the
-    device program reduces to a one-hot band SELECTION — two tiny MXU
+    device program reduces to a one-hot band SELECTION — two tiny
     matmuls ending straight in the output dtype — instead of L masked
-    folds over every pixel (measured ~5x on the 6-layer 1080p fold).
+    folds over every pixel.
 
     colors (L, B, 4) f32; boxes (L, B, 4) i32 [y0, y1, x0, x1] relative
     inclusive (empty = y1 < y0); gains/offsets (L, B) f32. Returns
@@ -979,20 +980,15 @@ def _fold_over_windows(window_arrays, full):
 
 def _compress_solid_runs(children, ctx):
     """Replace runs of >= 2 consecutive solid(/gain) layers with one
-    fused node: 'solid_stack' (the hybrid Pallas/XLA fold,
-    ops/pallas_ops.py) by default, or the 'solid_cells' cell-table
-    selection with CANVAS_SOLID_CELLS=1.
+    fused node: 'solid_stack' (the fused XLA fold, ops/composite.py) by
+    default, or the 'solid_cells' cell-table selection with
+    CANVAS_SOLID_CELLS=1.
 
-    The cell-table design (_solid_cell_tables) is kept as a MEASURED
-    DEAD END on this hardware: folding per piecewise-constant cell on
-    host and selecting with one-hot matmuls is algorithmically minimal,
-    but the selection's contraction dim (~2L+1 ≈ 13) pads to the MXU's
-    128 lanes (10x the paper FLOPs) and the (B, 5, H, W) selection
-    tensor materializes between matmul and consumers — measured
-    23.9 ms/b32 vs the hybrid fold's 14.7 on the 10-layer 1080p graph.
-    It remains bit-exact and fully tested; a future chip/toolchain with
-    cheaper small-K contraction or matmul-consumer fusion changes the
-    verdict."""
+    The cell-table design (_solid_cell_tables) folds per
+    piecewise-constant cell on host and selects with one-hot matmuls:
+    algorithmically minimal, but the (B, 5, H, W) selection tensor
+    materializes between matmul and consumers. It is bit-exact and fully
+    tested, and off by default; it has not been timed on the GPU."""
     import os
     from canvas_tpu.render import Node
     use_cells = os.environ.get('CANVAS_SOLID_CELLS', '') == '1'
@@ -1089,11 +1085,9 @@ def _ws_emit(self, ctx):
         # math (scaler einsums, blends) shrinks to the covered area.
         # Factored scaled solids ('scale_solid*') stay region-placed
         # like any non-solid layer: an unplaced variant folding them
-        # into one full-frame fused XLA chain was built and MEASURED
-        # SLOWER (16.0 vs 8.9 ms/b32 device-only on the headline graph,
-        # scripts/device_loop_probe.py) — the mega-chain pays every
-        # layer's math on every pixel and fuses worse than the
-        # region-limited multi-pass structure.
+        # into one full-frame fused XLA chain pays every layer's math on
+        # every pixel, which the region-limited structure avoids (the
+        # two have not been timed against each other on the GPU).
         if (child.op not in ('solid', 'solid_stack', 'empty')
                 and not (child.op == 'gain_offset'
                          and child.children[0].op == 'solid')
@@ -1109,14 +1103,13 @@ def _ws_emit(self, ctx):
             y1 = min(int(wn[:, 3].max()), full.max.y)
             if x1 < x0 or y1 < y0:
                 continue
-            # Quantize the box to the device tile grid (rows 64, cols
-            # 128): origin aligns DOWN, size rounds UP. Origins ride as
-            # dynamic params, so every frame range of the same motion
-            # produces identical program geometry (compiled-program
-            # reuse), and tile alignment lets the region composite run
-            # as a Pallas kernel that touches only the region's blocks.
-            # The box may overhang the frame edge; edge blocks clip.
-            QR, QC = 64, 128
+            # Quantize the box to the region block grid
+            # (composite.REGION_BLOCK, rows 64, cols 128): origin aligns
+            # DOWN, size rounds UP. Origins ride as dynamic params, so
+            # every frame range of the same motion produces identical
+            # program geometry (compiled-program reuse). The box may
+            # overhang the frame edge; edge blocks clip.
+            QR, QC = REGION_BLOCK
             x0 = full.min.x + ((x0 - full.min.x) // QC) * QC
             y0 = full.min.y + ((y0 - full.min.y) // QR) * QR
             w_box = -((x1 - x0 + 1) // -QC) * QC
@@ -1127,13 +1120,10 @@ def _ws_emit(self, ctx):
             # The quantized box may overhang the frame's bottom/right
             # edge: origin aligns down and size rounds up, but content
             # was clipped to the frame first, so the end always lands
-            # within the frame's 64x128-aligned envelope — exactly the
-            # partial-last-block case the region kernels handle (Pallas
-            # masks the store; the XLA fallback pads to the envelope).
-            # Rejecting overhang here used to drop every motion phase
-            # that touches a frame edge into the full-frame fused
-            # chain, measured 2.8x slower device-side (16 vs 5.8 ms/b32
-            # on the headline graph's late phases).
+            # within the frame's 64x128-aligned envelope, which the
+            # region pass pads to. (Rejecting overhang would drop every
+            # motion phase that touches a frame edge into the
+            # full-frame fused chain.)
             if area < 0.7 * full.height * full.width:
                 dy0 = y0 - full.min.y
                 dx0 = x0 - full.min.x
@@ -1344,8 +1334,8 @@ def _scaler_emit(self, ctx):
     child = ctx.with_window(fetch, sem=fb_all).plan(self.source)
 
     # Low-quality hint (reference scale 1-11, framework.h:510-513):
-    # quality <= 5 degrades to bilinear taps + default-precision MXU
-    # contraction on the dynamic path (hints.rst's intent: previews
+    # quality <= 5 degrades to bilinear taps + default-precision (TF32
+    # on the GPU) contraction on the dynamic path (hints.rst's intent: previews
     # trade exactness for speed; quality >= 10 stays bit-exact).
     lq = getattr(ctx.planner, 'quality', 10) <= 5
 
@@ -1488,10 +1478,9 @@ def _transfer_emit(self, ctx):
     windows = child.windows
 
     def lut_node(name, inner):
-        # No 'table' param: the batched path computes the curve directly
-        # on the VPU (render._device_transfer); the op name in static
-        # selects the formula. (Eager path keeps the 64K LUTs for the
-        # bit-exact contract.)
+        # No 'table' param: the op name in static selects the curve, and
+        # render._device_transfer gathers from the same 64K LUT the
+        # eager path uses.
         return Node('transfer', static=(name,),
                     children=[inner], windows=windows)
 

@@ -1,4 +1,4 @@
-// canvas_av: native media IO for Canvas-TPU.
+// canvas_av: native media IO for Canvas.
 //
 // C++ equivalent of the reference's libav module
 // (/root/reference/src/libav/: AVDemuxer.c, AVVideoDecoder.c,
@@ -11,7 +11,7 @@
 //    exposes a packet-source protocol for parity, but the hot decode loop
 //    never leaves C++.
 //  * The muxer accepts raw RGBA/float buffers and converts with
-//    swscale/swresample in-process; the TPU render path hands it batches.
+//    swscale/swresample in-process; the device render path hands it batches.
 //
 // Frame-accurate seeking follows the reference's strategy
 // (AVVideoDecoder.c:182-256): seek to a keyframe at-or-before the target,
@@ -1430,7 +1430,7 @@ CAV_EXPORT int cav_encoder_packet(CavEncoder *e, CavPacket *out) {
 }
 
 // Planar-input video encoder: encode pre-subsampled planar YCbCr (e.g.
-// the TPU DV/MPEG-2 subsample output) without an RGB round trip — the
+// the device DV/MPEG-2 subsample output) without an RGB round trip — the
 // reference's X264VideoEncoder/AVVideoEncoder consume coded images the
 // same way.
 // _ex: sample aspect ratio + interlacing flags, like

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Canvas-TPU editor entry point (the reference's qttest.py role).
+"""Canvas editor entry point (the reference's qttest.py role).
 
 Launches the full Qt main window — document tabs with mouse-editable
 timelines, video preview, asset/notification docks, transport — when a

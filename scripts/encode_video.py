@@ -4,7 +4,7 @@
 Equivalent of /root/reference/scripts/encode-video.py: argparse surface
 with --crf / --preset / --16x9 / --max-bitrate / -f, DV sample aspect
 ratio defaults (10:11, or 40:33 widescreen), output path derived from
-the input when omitted. Video rides the TPU reconstruction path
+the input when omitted. Video rides the device reconstruction path
 (DVReconstructionFilter) before x264.
 
 Usage: encode_video.py IN.dv [OUT.mkv] [--crf 23] [--preset slow]

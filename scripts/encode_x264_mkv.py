@@ -2,7 +2,7 @@
 """Encode a DV (or any libav-readable) file to H.264 in Matroska.
 
 Port of /root/reference/scripts/encode_x264_mkv.py to the canvas_tpu
-stack: native decode -> TPU DV reconstruction -> libx264 packets -> the
+stack: native decode -> device DV reconstruction -> libx264 packets -> the
 pure-Python Matroska writer.
 
 Usage: encode_x264_mkv.py INPUT [OUTPUT.mkv] [FRAMES]

@@ -16,12 +16,15 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR', '/tmp/canvas_tpu_jax_cache')
 
 if os.environ.get('CANVAS_FORCE_CPU'):
     import jax
 
     jax.config.update('jax_platforms', 'cpu')
+
+from canvas_tpu import backend  # noqa: E402
+
+backend.configure_compile_cache()
 
 
 def main():

@@ -112,7 +112,7 @@ def main():
     engine = VideoPlaybackEngine(workspace, clock, rate, window, present)
     try:
         # Compile the full pipeline BEFORE starting the clock: first
-        # compiles cost seconds (tens through a remote transport), and
+        # compiles cost seconds, and
         # a clock already running skips every frame inside them.
         t0 = time.time()
         engine.warm(0)

@@ -3,10 +3,12 @@
 import fractions
 import io
 
+import pytest
 import yaml
 
 from canvas_tpu.basetypes import (box2i, box2f, box2i_intersect, box2i_union,
-                                  box2i_normalize, rgba, v2i, v2f)
+                                  box2i_normalize, register_yaml, rgba, v2i,
+                                  v2f)
 
 
 class TestV2i:
@@ -73,6 +75,10 @@ class TestRgba:
 
 
 class TestYaml:
+    @pytest.fixture(autouse=True)
+    def _tags(self):
+        register_yaml()
+
     def test_roundtrip(self):
         doc = {
             'pos': v2i(3, -4),

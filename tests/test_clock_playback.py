@@ -112,8 +112,8 @@ def test_playback_engine_presents_frames():
         lambda idx, bgra: presented.append((idx, bgra.shape)))
     try:
         clock.play(1)
-        # on a remote device the first batch includes a slow compile
-        budget = 60 if os.environ.get('CANVAS_TEST_TPU') else 10
+        # on a device the first batch includes a slow compile
+        budget = 60 if os.environ.get('CANVAS_TEST_DEVICE') else 10
         deadline = time.time() + budget
         while len(presented) < 3 and time.time() < deadline:
             time.sleep(0.02)
@@ -233,7 +233,7 @@ def test_display_semantics_par_and_intent():
         assert engine.display_size() == (91, 80)
 
         clock.play(1)
-        deadline = time.time() + (60 if os.environ.get('CANVAS_TEST_TPU')
+        deadline = time.time() + (60 if os.environ.get('CANVAS_TEST_DEVICE')
                                   else 10)
         while not presented and time.time() < deadline:
             time.sleep(0.02)
@@ -256,7 +256,7 @@ def test_display_semantics_par_and_intent():
         engine.set_rendering_intent(1.0)
         clock.seek(0)
         clock.play(1)
-        deadline = time.time() + (60 if os.environ.get('CANVAS_TEST_TPU')
+        deadline = time.time() + (60 if os.environ.get('CANVAS_TEST_DEVICE')
                                   else 10)
         while not presented and time.time() < deadline:
             time.sleep(0.02)
@@ -273,7 +273,7 @@ def test_display_semantics_par_and_intent():
 
 
 def test_display_u8_device_matches_host_lut():
-    """Device display conversion (direct VPU math) agrees with the
+    """Device display conversion (direct math) agrees with the
     host 64K-LUT path within 1 code value everywhere."""
     from canvas_tpu import backend
     from canvas_tpu.ops import color as color_ops
@@ -320,16 +320,16 @@ def test_reverse_playback_staged_source():
     try:
         # start at frame 40, play backwards (10 fps so the recon path
         # keeps up; clamp the range so a slow first compile can't let
-        # the playhead escape below frame 0 on the remote chip)
+        # the playhead escape below frame 0 on a device)
         engine.set_frame_range(0, 40)
-        # Warm the compiled batch program first: on the remote chip the
-        # first compile takes tens of seconds and would outrun any
-        # real-time playhead.
+        # Warm the compiled batch program first: a first compile on a
+        # device can take seconds and would outrun any real-time
+        # playhead.
         engine._render_batch(37, 41)
         clock.seek(process.get_frame_time(Fraction(10, 1), 40))
         presented.clear()     # drop the paused pre-seek frame
         clock.play(-1)
-        deadline = time.time() + (120 if os.environ.get('CANVAS_TEST_TPU')
+        deadline = time.time() + (120 if os.environ.get('CANVAS_TEST_DEVICE')
                                   else 40)
         while len(presented) < 3 and time.time() < deadline:
             time.sleep(0.02)
@@ -552,8 +552,8 @@ def test_playback_engine_quality_hint():
 def test_playback_stall_watchdog(monkeypatch):
     """A render batch exceeding stall_timeout fires on_stall(True) once
     and on_stall(False) when progress resumes (the device-transport
-    stall alert — a dead tunnel blocks the render thread in native code,
-    so the app must learn about it from a watchdog)."""
+    stall alert — a hung device call blocks the render thread in native
+    code, so the app must learn about it from a watchdog)."""
     import threading
 
     from canvas_tpu.playback import VideoPlaybackEngine
@@ -818,11 +818,18 @@ def test_playback_viewport_numpy_path(numpy_backend):
         engine.set_viewport((8, 6))
         clock.play(1)
         deadline = time.time() + 15
-        while not presented and time.time() < deadline:
+        while (not any(f.shape == (6, 8, 4) for f in presented)
+               and time.time() < deadline):
             time.sleep(0.02)
         clock.stop()
-        assert presented
-        assert presented[0].shape == (6, 8, 4)
+        # The render thread presents the paused frame as soon as it
+        # starts, which can land before set_viewport; from the first
+        # viewport-sized frame on, every frame is viewport-sized.
+        shapes = [f.shape for f in presented]
+        assert (6, 8, 4) in shapes
+        first = shapes.index((6, 8, 4))
+        assert set(shapes[first:]) == {(6, 8, 4)}
+        assert set(shapes[:first]) <= {(16, 16, 4)}
     finally:
         engine.stop()
 

@@ -153,8 +153,8 @@ def test_quantize_f16_matches_cast_pair():
     """ops.color.quantize_f16 must equal the f32->f16->f32 cast pair
     elementwise — including f16 subnormals (reduce_precision alone
     flushes them), negatives, overflow-to-inf, and nan — both eagerly
-    and under jit (on TPU the plain cast pair gets FOLDED AWAY inside
-    fused programs; the helper is the fold-proof replacement)."""
+    and under jit (an XLA backend may FOLD the plain cast pair away
+    inside fused programs; the helper is the fold-proof replacement)."""
     from canvas_tpu import backend
 
     rng = np.random.RandomState(11)
@@ -195,8 +195,8 @@ def test_transfer_f32_jax_matches_formula(jax_backend):
         got = np.asarray(jax_fn(jnp.asarray(x)))
         want = np_fn(x.copy())
         # 5e-5: the direct-formula branch is the NON-parity fast path;
-        # device pow/exp round differently from host libm (a real TPU
-        # run misses 2e-6), while a wrong coefficient diverges at 1e-2+
+        # device pow/exp round differently from host libm (by ~1e-6),
+        # while a wrong coefficient diverges at 1e-2+
         np.testing.assert_allclose(got, want, atol=5e-5, rtol=5e-5,
                                    err_msg=np_fn.__name__)
 

@@ -64,7 +64,7 @@ def test_dv_editor_end_to_end(dv_file, tmp_path):
     asset = app.import_file('tape', dv_file)
     assert asset is not None
 
-    # The DV stream resolved through the DV codec (TPU reconstruction),
+    # The DV stream resolved through the DV codec (device reconstruction),
     # not the generic RGBA fallback.
     source = asset.get_source()
     source.bring_online()

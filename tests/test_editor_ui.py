@@ -436,7 +436,7 @@ def test_qt_video_widget_with_fake_binding():
             assert (hint.width(), hint.height()) == (29, 24)
 
             clock.play(1)
-            deadline = time.time() + (60 if os.environ.get('CANVAS_TEST_TPU')
+            deadline = time.time() + (60 if os.environ.get('CANVAS_TEST_DEVICE')
                                       else 10)
             while widget.update_calls == 0 and time.time() < deadline:
                 time.sleep(0.02)
@@ -509,7 +509,7 @@ def test_editor_app_end_to_end_playback_and_export(tmp_path):
             box2i(0, 0, 47, 31))
         try:
             app.play(1)
-            deadline = time.time() + (60 if os.environ.get('CANVAS_TEST_TPU')
+            deadline = time.time() + (60 if os.environ.get('CANVAS_TEST_DEVICE')
                                       else 10)
             while widget.update_calls == 0 and time.time() < deadline:
                 time.sleep(0.02)
@@ -556,7 +556,7 @@ def test_gtk_video_widget_with_fake_binding():
         try:
             assert widget.size_request == (29, 24)
             clock.play(1)
-            deadline = time.time() + (60 if os.environ.get('CANVAS_TEST_TPU')
+            deadline = time.time() + (60 if os.environ.get('CANVAS_TEST_DEVICE')
                                       else 10)
             while widget.queue_draw_calls == 0 and time.time() < deadline:
                 time.sleep(0.02)

@@ -171,7 +171,7 @@ def test_audio_player_clock():
 
 
 def test_planar_dv_round_trip(tmp_path):
-    """TPU subsample -> native dvvideo encode -> mux -> decode -> TPU
+    """Device subsample -> native dvvideo encode -> mux -> decode -> device
     reconstruct. The full coded-image encode path of the reference
     (DVSubsampleFilter -> AVVideoEncoder)."""
     from canvas_tpu.coded import DVSubsampleFilter

@@ -4,42 +4,23 @@ The reference's quality-hint scale (framework.h:510-513 and the hints
 proposal docs/sphinx/feature-proposal/hints.rst) licenses non-bit-exact
 rendering below quality 10. Our planner uses quality<=9 to store the
 inter-pass premultiplied accumulators (P, A) in bfloat16 — roughly half
-the accumulator HBM traffic between composite passes — while all blend
-math stays f32 and the output stays f16.  Contracts pinned here:
+the accumulator memory traffic between composite passes — while all
+blend math stays f32 and the output stays f16.  Contracts pinned here:
 
 - quality 10 signatures are UNCHANGED (plain (H, W) over_stack static)
   and stay bit-exact vs the eager pull path;
 - quality 9 output is within bf16 rounding of the quality-10 output;
 - the 'acc16' tag lives in the node signature, so the program cache
-  cannot alias the two quality tiers;
-- the Pallas kernel bodies (interpreted) agree with the jnp fallbacks
-  under bf16 accumulators.
+  cannot alias the two quality tiers.
+(The compositing passes under bf16 accumulators are pinned in
+test_pallas_ops.py.)
 """
 
 import numpy as np
-import pytest
-
-import jax
-import jax.numpy as jnp
 
 import bench
 from canvas_tpu import render
 from canvas_tpu.basetypes import box2i
-from canvas_tpu.ops import pallas_ops as po
-
-
-@pytest.fixture
-def interp(monkeypatch):
-    def on():
-        monkeypatch.setenv('CANVAS_PALLAS_INTERPRET', '1')
-        monkeypatch.setenv('CANVAS_FOLD_MODE', 'pallas')
-
-    def off():
-        monkeypatch.delenv('CANVAS_PALLAS_INTERPRET', raising=False)
-        monkeypatch.delenv('CANVAS_FOLD_MODE', raising=False)
-
-    off()
-    return on, off
 
 
 def test_quality9_close_quality10_bit_exact():
@@ -81,109 +62,3 @@ def test_acc16_tag_in_signature():
     assert s10 != s9
     assert 'acc16' in repr(s9)
     assert 'acc16' not in repr(s10)
-
-
-def _solid_layers(rng, L, B, H, W):
-    color = rng.uniform(0.0, 1.0, size=(L, B, 4)).astype(np.float32)
-    gain = rng.uniform(0.5, 1.5, size=(L, B)).astype(np.float32)
-    offset = rng.uniform(-0.2, 0.2, size=(L, B)).astype(np.float32)
-    box = np.zeros((L, B, 4), np.int32)
-    for l in range(L):
-        for b in range(B):
-            box[l, b] = (rng.integers(0, H // 2), rng.integers(H // 2, H),
-                         rng.integers(0, W // 2), rng.integers(W // 2, W))
-    return (jnp.asarray(color), jnp.asarray(box), jnp.asarray(gain),
-            jnp.asarray(offset))
-
-
-def test_solid_fold_kernel_bf16_acc(interp):
-    """Interpreted kernel vs jnp chain, both storing bf16 accumulators
-    from a bf16 base."""
-    on, off = interp
-    rng = np.random.default_rng(31)
-    L, B, H, W = 3, 2, 128, 256
-    color, box, gain, offset = _solid_layers(rng, L, B, H, W)
-    P = jnp.asarray(rng.uniform(0, 1, (B, 3, H, W)).astype(np.float32)
-                    ).astype(jnp.bfloat16)
-    A = jnp.asarray(rng.uniform(0, 1, (B, 1, H, W)).astype(np.float32)
-                    ).astype(jnp.bfloat16)
-
-    off()
-    expP, expA = po.solid_fold(jnp, jax, P, A, color, box, gain, offset,
-                               H, W, acc_dtype=jnp.bfloat16)
-    on()
-    gotP, gotA = po.solid_fold(jnp, jax, P, A, color, box, gain, offset,
-                               H, W, acc_dtype=jnp.bfloat16)
-    assert gotP.dtype == jnp.bfloat16 and gotA.dtype == jnp.bfloat16
-    assert expP.dtype == jnp.bfloat16 and expA.dtype == jnp.bfloat16
-    # same f32 math, independent bf16 rounding; fma contraction under
-    # the interpreter can land one bf16 ulp apart
-    np.testing.assert_allclose(np.asarray(gotP, np.float32),
-                               np.asarray(expP, np.float32),
-                               rtol=0, atol=2 ** -7)
-    np.testing.assert_allclose(np.asarray(gotA, np.float32),
-                               np.asarray(expA, np.float32),
-                               rtol=0, atol=2 ** -7)
-
-
-def test_region_kernels_bf16_acc(interp):
-    """region_over / region_over_sep with bf16 accumulators: interpreted
-    kernels match the fallbacks; dtype is preserved; pixels outside the
-    region are untouched (bitwise)."""
-    on, off = interp
-    rng = np.random.default_rng(37)
-    B, H, W = 2, 192, 384
-    h, w = 128, 256
-    dy0, dx0 = jnp.int32(64), jnp.int32(128)
-    P = jnp.asarray(rng.uniform(0, 1, (B, 3, H, W)).astype(np.float32)
-                    ).astype(jnp.bfloat16)
-    A = jnp.asarray(rng.uniform(0, 1, (B, 1, H, W)).astype(np.float32)
-                    ).astype(jnp.bfloat16)
-    layer = jnp.asarray(rng.uniform(0, 1, (B, 4, h, w)).astype(np.float32)
-                        ).astype(jnp.bfloat16)
-
-    off()
-    expP, expA = po.region_over(jnp, jax, P, A, layer, dy0, dx0)
-    on()
-    gotP, gotA = po.region_over(jnp, jax, P, A, layer, dy0, dx0)
-    assert gotP.dtype == jnp.bfloat16
-    np.testing.assert_allclose(np.asarray(gotP, np.float32),
-                               np.asarray(expP, np.float32),
-                               rtol=0, atol=2 ** -7)
-    np.testing.assert_array_equal(
-        np.asarray(gotP[:, :, :64, :], np.float32),
-        np.asarray(P[:, :, :64, :], np.float32))
-
-    color = jnp.asarray(rng.uniform(0, 1, (B, 4)).astype(np.float32))
-    ry = jnp.asarray(rng.uniform(0, 1, (B, h)).astype(np.float32))
-    rx = jnp.asarray(rng.uniform(0, 1, (B, w)).astype(np.float32))
-    off()
-    expP, expA = po.region_over_sep(jnp, jax, P, A, color, ry, rx,
-                                    dy0, dx0)
-    on()
-    gotP, gotA = po.region_over_sep(jnp, jax, P, A, color, ry, rx,
-                                    dy0, dx0)
-    assert gotP.dtype == jnp.bfloat16 and gotA.dtype == jnp.bfloat16
-    np.testing.assert_allclose(np.asarray(gotP, np.float32),
-                               np.asarray(expP, np.float32),
-                               rtol=0, atol=2 ** -7)
-    np.testing.assert_allclose(np.asarray(gotA, np.float32),
-                               np.asarray(expA, np.float32),
-                               rtol=0, atol=2 ** -7)
-
-
-def test_planner_quality9_interpreted_kernels(interp):
-    """Full planner at quality 9 with the ACTUAL kernel bodies
-    (interpreted) in the loop: output within bf16 rounding of the eager
-    pull path."""
-    on, off = interp
-    win = box2i(0, 0, 511, 255)
-    ws = bench.build_timeline(16)
-    on()
-    planner = render.RenderPlanner(ws, win, quality=9)
-    got = np.asarray(planner.render(2, 6)).astype(np.float32)
-    off()
-    for i in range(4):
-        exp = np.asarray(ws.get_frame_f16(2 + i, win).data,
-                         np.float32)
-        assert np.abs(got[i] - exp).max() <= 0.02

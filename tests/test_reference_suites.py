@@ -17,7 +17,7 @@ toolkit-free ``canvas_tpu.editor.model.undo.UndoCommand``.
 Exclusions (documented per VERDICT r4 item 1; each cited):
 
 * ``tests/process/video/SolidColorVideoSource.py`` sets ``force_gl=True``
-  and passes it to ``get_frame_f32`` — accepted and mapped to the TPU
+  and passes it to ``get_frame_f32`` — accepted and mapped to the device
   path (SURVEY §2.5: the GL renderer's role is taken by the XLA render
   path), so the file runs unmodified.  No file is excluded outright.
 * One individual test is excluded (``EXCLUDED``): the reference's own

@@ -478,8 +478,8 @@ def test_explain_reports_plan_tree():
 
 
 def test_region_sep_flag_recompiles_and_matches(monkeypatch):
-    """CANVAS_REGION_SEP (fused rank-1 region kernel, default ON; XLA
-    fallback off TPU) must compile a DISTINCT program per flag arm for
+    """CANVAS_REGION_SEP (rank-1 region pass, default ON; 0 materializes
+    the region layer) must compile a DISTINCT program per flag arm for
     the same signature — the flag is read at trace time, so keying the
     program cache on it is what keeps an A/B flip from replaying the
     other arm's program — and the arms' outputs must match."""
@@ -556,28 +556,6 @@ def test_range_invalidation_keeps_untouched_plans():
     # no-range call clears everything
     planner.invalidate_display_cache()
     assert not planner._plan_cache
-
-
-def test_fold_mode_flag_recompiles_and_matches(monkeypatch):
-    """CANVAS_FOLD_MODE (trace-time A/B of the solid-fold formulation)
-    gets its own program-cache entries and identical output."""
-    from canvas_tpu.render import RenderPlanner
-
-    window = box2i(0, 0, 255, 159)
-    ws = VideoWorkspace()
-    for z in range(4):
-        ws.add(source=SolidColorVideoSource(
-            (0.2 + 0.1 * z, 0.5, 0.3, 0.6),
-            window=box2i(10 * z, 8 * z, 150 + 10 * z, 100 + 8 * z)),
-            x=0, length=12, z=z)
-
-    monkeypatch.delenv('CANVAS_FOLD_MODE', raising=False)
-    base = np.asarray(RenderPlanner(ws, window).render(1, 5))
-    cache_before = len(render._program_cache)
-    monkeypatch.setenv('CANVAS_FOLD_MODE', 'xla')
-    alt = np.asarray(RenderPlanner(ws, window).render(1, 5))
-    assert len(render._program_cache) > cache_before
-    np.testing.assert_array_equal(alt, base)   # fold is bit-exact
 
 
 def test_iter_batches_max_inflight_matches():
@@ -1445,7 +1423,7 @@ def test_persistent_cache_invalidation_and_eviction():
 
 
 def test_quality_hint_degrades_scaler():
-    """quality <= 5 renders scalers with bilinear taps at default MXU
+    """quality <= 5 renders scalers with bilinear taps at default matmul
     precision: visibly close to the exact result but with a smaller
     tap count / cheaper contraction (round-3 verdict item 9; the
     reference's 1-11 hint scale, framework.h:510-513 +
@@ -1701,11 +1679,11 @@ def test_scaler_source_rect_crops_like_pull(any_backend):
 
 def test_transfer_under_composite_bit_exact(any_backend):
     """A transfer curve whose output feeds FURTHER composite math must
-    stay f16-quantized mid-program. The TPU compiler folds
-    convert(f16)->convert(f32) pairs away inside fused programs
-    (the CPU compiler does not — this bug was only visible on chip:
-    one f16 ulp on 25% of pixels), so the planner quantizes through
-    the fold-proof ops.color.quantize_f16. Bit-exact, not allclose."""
+    stay f16-quantized mid-program. An XLA backend may fold
+    convert(f16)->convert(f32) pairs away inside fused programs (one
+    f16 ulp on 25% of pixels where it does), so the planner quantizes
+    through the fold-proof ops.color.quantize_f16. Bit-exact, not
+    allclose."""
     from canvas_tpu.sources import VideoColorTransferFilter
 
     base = SolidColorVideoSource((0.2317, 0.4421, 0.613, 1.0))
@@ -2022,6 +2000,45 @@ def test_hbm_footprint_guard_malformed_env(monkeypatch, caplog):
     planner.close()
 
 
+class _FakeDevice:
+    platform = 'gpu'
+    device_kind = 'Fake GPU'
+
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize('stats', [None, {}, {'bytes_limit': 0}])
+def test_hbm_budget_requires_bytes_limit(monkeypatch, stats):
+    """An accelerator that reports no bytes_limit is an error naming the
+    override, not an assumed device size."""
+    import jax
+    monkeypatch.delenv('CANVAS_HBM_MB', raising=False)
+    monkeypatch.setattr(jax, 'devices', lambda *a: [_FakeDevice(stats)])
+    with pytest.raises(RuntimeError, match='CANVAS_HBM_MB'):
+        render._hbm_budget_bytes()
+
+
+def test_hbm_budget_reads_bytes_limit(monkeypatch):
+    """The budget is the device's own bytes_limit; the CPU has none."""
+    import jax
+    monkeypatch.delenv('CANVAS_HBM_MB', raising=False)
+    real = jax.devices()[0]
+    monkeypatch.setattr(jax, 'devices',
+                        lambda *a: [_FakeDevice({'bytes_limit': 12345})])
+    assert render._hbm_budget_bytes() == 12345
+    monkeypatch.undo()
+    monkeypatch.delenv('CANVAS_HBM_MB', raising=False)
+    if real.platform == 'cpu':
+        assert render._hbm_budget_bytes() is None
+    else:
+        assert render._hbm_budget_bytes() == real.memory_stats()[
+            'bytes_limit']
+
+
 def test_hbm_footprint_guard_cumulative_collectors(monkeypatch):
     """Collectors that retain every batch on device (render across
     segments, render_sharded) are checked against the WHOLE range's
@@ -2048,7 +2065,7 @@ def test_hbm_footprint_guard_cumulative_collectors(monkeypatch):
     # where the unsharded cumulative raises (5.3 MB > 2 MB), the
     # sharded per-device cumulative (0.66 MB) and per-batch working
     # set (0.83 MB at batch 8) both fit. (CPU conftest pins 8 virtual
-    # devices; a single-chip TPU run skips this arm.)
+    # devices; a single-GPU run skips this arm.)
     import jax
     from jax.sharding import Mesh
     monkeypatch.setenv('CANVAS_HBM_MB', '2')
@@ -2192,7 +2209,7 @@ def test_sequence_forwards_pulldown_hints(monkeypatch):
     np.testing.assert_allclose(got.astype(np.float32),
                                want.astype(np.float32), atol=2e-3)
     assert len(pulls) == len(set(pulls)), pulls
-    # Each unique frame's bytes cross the tunnel exactly ONCE. The
+    # Each unique frame's bytes are transferred exactly ONCE. The
     # stack may ship as several 8-row slabs (pipelined decode->H2D
     # staging overlaps transfer with later pulls), so assert no row is
     # shipped twice rather than a single call: total shipped rows ==

@@ -2,7 +2,7 @@
 
 The planner (canvas_tpu/render.py) must agree with the eager pull path
 for any graph the editor can build. Random workspaces exercise solid
-runs (Pallas stack), damage regions, scalers, mixes, sequences, gaps,
+runs (fused fold), damage regions, scalers, mixes, sequences, gaps,
 empty layers, and opaque pruning together, across segment boundaries.
 """
 
